@@ -6,15 +6,17 @@ N hosts with >=70% scaling efficiency. This harness measures the
 landmark-sharded distributed Schur BA (parallel/dist_ba.py) at a sweep of
 mesh sizes and prints one JSON line per mesh plus a final efficiency line.
 
-On this container it runs on virtual CPU devices (the mesh/collective code
-path is identical to a pod slice; absolute numbers are only meaningful on
-real chips). Weak scaling by default: landmarks per device held constant.
+It runs on whatever devices JAX finds: GPUs, or virtual CPU devices (the
+mesh/collective code path is the same; absolute numbers mean something only
+on real cards). Weak scaling by default: landmarks per device held constant.
 
   python scripts/bench_scaling.py [--devices 1 2 4 8] [--lm-per-dev 4096]
   python scripts/bench_scaling.py --strong --landmarks 32768
 
-Multi-process (multi-host) mode: N processes x D virtual devices each, one
-global mesh through jax.distributed (gRPC loopback here; ICI/DCN on a pod):
+Multi-process mode is a multi-host stand-in on virtual CPU devices only:
+N processes x D virtual devices each, one global mesh through
+jax.distributed over gRPC loopback. Several processes per card would fail
+for device memory, so it refuses any other platform:
 
   python scripts/bench_scaling.py --multiprocess 2 --local-devices 4
 """
@@ -191,6 +193,11 @@ def main(argv=None):
         run_worker(args)
         return
     if args.multiprocess:
+        if (args.platform or os.environ.get("JAX_PLATFORMS") or "cpu") != "cpu":
+            raise SystemExit(
+                "--multiprocess runs virtual CPU devices only (one JAX process "
+                "per card is the limit on a GPU); unset --platform/JAX_PLATFORMS"
+            )
         spawn_multiprocess(args)
         return
 
@@ -207,6 +214,10 @@ def main(argv=None):
         jax.config.update("jax_platforms", args.platform)
 
     from jax.sharding import Mesh
+
+    from visual_odometry_ros_tpu.device import enable_compile_cache
+
+    enable_compile_cache()
 
     from visual_odometry_ros_tpu.ops import ba as BA
     from visual_odometry_ros_tpu.parallel import dist_ba

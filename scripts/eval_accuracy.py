@@ -1,24 +1,25 @@
 #!/usr/bin/env python
 """Accuracy procedure (BASELINE.md): run mono + stereo VO on long adversarial
-synthetic sequences, record ATE RMSE / RPE, and hold the TPU (Pallas) engine
-to <= the CPU (jnp, faithful-reference-path) ATE.
+synthetic sequences, record ATE RMSE / RPE, and hold the GPU run to <= the
+CPU run's ATE (same jnp program, two backends).
 
 No KITTI/EuRoC data exists in this environment, so the sequences are made
 hard instead (BASELINE.md procedure as amended by round-1 VERDICT #4):
 200+ frames, exposure drift, a moving occluder, repeated texture, varying
 speed with S-curves (io/synthetic.py HardSequence / varied_trajectory).
 
-The CPU run uses the pure-jnp KLT path with reference thresholds — the
-reimplementation of the reference algorithms that BASELINE.md designates as
-the accuracy baseline. The TPU run uses the Pallas kernels. Both must land
-under the drift bounds, and TPU ATE must not exceed CPU ATE materially.
+The CPU run is the reimplementation of the reference algorithms with
+reference thresholds that BASELINE.md designates as the accuracy baseline.
+The GPU run executes the same program on the card. Both must land under the
+drift bounds, and GPU ATE must not exceed CPU ATE materially.
 
 Usage:
   python scripts/eval_accuracy.py --platform cpu            # baseline leg
-  python scripts/eval_accuracy.py                           # TPU leg
+  python scripts/eval_accuracy.py --platform cuda           # GPU leg
   python scripts/eval_accuracy.py --render-only             # just write md
 
-Each leg appends to ACCURACY.json; ACCURACY.md is regenerated after each run.
+Each leg is keyed by its platform (cpu, gpu) in ACCURACY.json; ACCURACY.md is
+regenerated after each run. Rendered frames are cached under out/.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ JSON_PATH = os.path.join(ROOT, "ACCURACY.json")
 MD_PATH = os.path.join(ROOT, "ACCURACY.md")
 
 
-def build_stereo(use_pallas):
+def build_stereo():
     from visual_odometry_ros_tpu.config import VOConfig
     from visual_odometry_ros_tpu.models.stereo_vo import StereoVO
 
@@ -59,11 +60,10 @@ def build_stereo(use_pallas):
     cfg.keyframe.thres_translation = 1.2
     cfg.tracker.max_level = 3
     cfg.tracker.max_iter = 15
-    cfg.tracker.use_pallas = use_pallas
     return StereoVO(cfg)
 
 
-def build_mono(use_pallas):
+def build_mono():
     from visual_odometry_ros_tpu.config import VOConfig
     from visual_odometry_ros_tpu.models.mono_vo import MonoVO
 
@@ -80,18 +80,17 @@ def build_mono(use_pallas):
     cfg.keyframe.thres_translation = 1.2
     cfg.tracker.max_level = 3
     cfg.tracker.max_iter = 15
-    cfg.tracker.use_pallas = use_pallas
     return MonoVO(cfg)
 
 
 CHUNK = 25  # frames per device-resident scan batch
 
 
-def run_stereo(frames, use_pallas):
+def run_stereo(frames):
     """Chunked batch-scan stereo run (r2 weak #4: the per-frame path paid a
     jit dispatch per frame — 194 s for 200 frames; the scan path is one
     device call per CHUNK frames)."""
-    vo = build_stereo(use_pallas)
+    vo = build_stereo()
     il = np.stack([l for l, _ in frames])
     ir = np.stack([r for _, r in frames])
     t0 = time.perf_counter()
@@ -101,9 +100,9 @@ def run_stereo(frames, use_pallas):
     return np.stack(vo.trajectory), wall, vo.stats_log
 
 
-def run_mono(imgs, use_pallas):
+def run_mono(imgs):
     """Per-frame until bootstrapped (phase 2), then chunked batch scan."""
-    vo = build_mono(use_pallas)
+    vo = build_mono()
     t0 = time.perf_counter()
     first_steady = None
     i = 0
@@ -124,28 +123,20 @@ def main(argv=None):
     p.add_argument("--platform", default=None)
     p.add_argument("--frames", type=int, default=200)
     p.add_argument("--render-only", action="store_true")
-    p.add_argument("--pallas", choices=["auto", "on", "off"], default="auto",
-                   help="force the kernel path (default: pallas iff non-cpu "
-                        "backend); --pallas off on TPU bisects kernel-vs-"
-                        "numerics accuracy gaps")
-    p.add_argument("--tag", default=None,
-                   help="record key override (default: platform name)")
     args = p.parse_args(argv)
     if args.render_only:
         render_md()
         return
 
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
     import jax
 
-    plat = jax.devices()[0].platform
-    if args.pallas == "auto":
-        use_pallas = plat not in ("cpu",)
-    else:
-        use_pallas = args.pallas == "on"
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
+    from visual_odometry_ros_tpu.device import device_info, enable_compile_cache
+
+    enable_compile_cache()
+    device = device_info()
+    plat = device["platform"]
 
     from visual_odometry_ros_tpu.io.synthetic import HardSequence, varied_trajectory
     from visual_odometry_ros_tpu.io.trajectory import ate_rmse, rpe
@@ -158,10 +149,11 @@ def main(argv=None):
     # Corridor sized around the trajectory: the world is valid for every pose
     # (render raises ChiralityError otherwise — VERDICT r2 missing #1a).
     world = HardSequence(poses_T_wc=poses_gt, baseline=0.5)
-    # Rendering is ~15 min of host CPU per run; the sequence is a pure
-    # function of --frames, so cache it across legs (cpu/tpu/tpu_jnp all
-    # consume identical pixels — that identity is what makes the A/B valid).
-    cache = f"/tmp/vo_eval_frames_{args.frames}.npz"
+    # Rendering takes many minutes of host CPU per run; the sequence is a
+    # pure function of --frames, so cache it across legs (cpu/gpu consume
+    # identical pixels — that identity is what makes the A/B valid).
+    os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
+    cache = os.path.join(ROOT, "out", f"vo_eval_frames_{args.frames}.npz")
     if os.path.exists(cache):
         z = np.load(cache)
         frames = list(zip(z["il"], z["ir"]))
@@ -172,8 +164,8 @@ def main(argv=None):
         np.savez_compressed(cache, il=np.stack([l for l, _ in frames]),
                             ir=np.stack([r for _, r in frames]))
 
-    print(f"[{plat}] stereo run (use_pallas={use_pallas}) ...", flush=True)
-    traj_s, wall_s, slog = run_stereo(frames, use_pallas)
+    print(f"[{plat}] stereo run ...", flush=True)
+    traj_s, wall_s, slog = run_stereo(frames)
     n_fail = sum(1 for s in slog if s.get("pose_ok") is False)
     n_rec = sum(1 for s in slog if s.get("recovered", 0) > 0)
     ate_s = float(ate_rmse(traj_s, poses_gt, align="none"))
@@ -181,13 +173,12 @@ def main(argv=None):
 
     print(f"[{plat}] mono run ...", flush=True)
     imgs_l = [l for l, _ in frames]
-    traj_m, wall_m, _ = run_mono(imgs_l, use_pallas)
+    traj_m, wall_m, _ = run_mono(imgs_l)
     # Mono is up-to-scale: Umeyama sim3 alignment.
     ate_m = float(ate_rmse(traj_m, poses_gt, align="sim3"))
 
     rec = {
-        "platform": plat,
-        "use_pallas": use_pallas,
+        "device": device,
         "frames": args.frames,
         "distance_m": round(dist, 2),
         "stereo": {
@@ -222,7 +213,7 @@ def main(argv=None):
     if os.path.exists(JSON_PATH):
         with open(JSON_PATH) as f:
             records = json.load(f)
-    records[args.tag or plat] = rec
+    records[plat] = rec
     with open(JSON_PATH, "w") as f:
         json.dump(records, f, indent=1, allow_nan=False)
     render_md()
@@ -246,10 +237,10 @@ def render_md():
         "`varied_trajectory`); harness: `scripts/eval_accuracy.py`.",
         "",
         "The **cpu** row is the faithful reference-algorithm reimplementation",
-        "(pure-jnp KLT path, reference thresholds) — the accuracy baseline the",
-        "TPU engine is held to. The **tpu** row runs the Pallas kernels.",
+        "(reference thresholds) — the accuracy baseline the GPU run is held to.",
+        "The **gpu** row runs the same program on the card named in its row.",
         "",
-        "| platform | kernels | frames | dist (m) | stereo ATE (m) | stereo ATE %dist | stereo RPE t (m) | stereo RPE r (deg) | mono ATE sim3 (m) | mono ATE %dist |",
+        "| platform | device | frames | dist (m) | stereo ATE (m) | stereo ATE %dist | stereo RPE t (m) | stereo RPE r (deg) | mono ATE sim3 (m) | mono ATE %dist |",
         "|---|---|---|---|---|---|---|---|---|---|",
     ]
     def fmt(v, pct=False):
@@ -262,36 +253,23 @@ def render_md():
     for plat, rec in sorted(records.items()):
         s, m = rec["stereo"], rec["mono"]
         lines.append(
-            f"| {plat} | {'pallas' if rec['use_pallas'] else 'jnp'} | {rec['frames']} "
+            f"| {plat} | {rec['device']['kind']} | {rec['frames']} "
             f"| {rec['distance_m']} | {fmt(s['ate_rmse_m'])} | {fmt(s['ate_pct_of_dist'], True)} "
             f"| {fmt(s['rpe_trans_m'])} | {fmt(s['rpe_rot_deg'])} | {fmt(m['ate_rmse_sim3_m'])} | {fmt(m['ate_pct_of_dist'], True)} |"
         )
-    if "tpu_jnp" in records:
+    if "cpu" in records and "gpu" in records:
+        t = records["gpu"]["stereo"]["ate_rmse_m"]
+        c = records["cpu"]["stereo"]["ate_rmse_m"]
+        if t is None or c is None:
+            verdict = "FAIL (a leg diverged: ATE is null)"
+        elif t <= c * 1.2 + 0.01:
+            verdict = "PASS (<= CPU x1.2 + 1cm)"
+        else:
+            verdict = "FAIL"
         lines += [
             "",
-            "The **tpu_jnp** row (jnp kernels forced on the TPU backend, via",
-            "`--pallas off`) is the r5 bisect leg that localized the TPU",
-            "accuracy gap. Before the float32-matmul-precision fix it measured",
-            "stereo ATE **0.5507 m** / RPE rot 1.57° — *worse than the Pallas*",
-            "*leg* (0.4085 m), proving the defect was backend numerics (bf16",
-            "MXU rounding of pose/landmark einsums), not the kernels. The fix",
-            "pins `jax_default_matmul_precision=float32` in the package root.",
+            f"**GPU-vs-CPU ATE check:** stereo GPU {t} m vs CPU {c} m -> {verdict}",
         ]
-    if {"cpu"} < set(records) or len(records) >= 2:
-        plats = [p for p in records if p != "cpu"]
-        if "cpu" in records and plats:
-            t = records[plats[0]]["stereo"]["ate_rmse_m"]
-            c = records["cpu"]["stereo"]["ate_rmse_m"]
-            if t is None or c is None:
-                verdict = "FAIL (a leg diverged: ATE is null)"
-            elif t <= c * 1.2 + 0.01:
-                verdict = "PASS (<= CPU x1.2 + 1cm)"
-            else:
-                verdict = "FAIL"
-            lines += [
-                "",
-                f"**TPU-vs-CPU ATE check:** stereo TPU {t} m vs CPU {c} m -> {verdict}",
-            ]
     lines.append("")
     with open(MD_PATH, "w") as f:
         f.write("\n".join(lines))

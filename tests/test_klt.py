@@ -135,3 +135,64 @@ def test_pyramid_shapes(rng):
     img = jnp.asarray(_textured_image(rng, 128, 256))
     pyr = build_pyramid(img, 4)
     assert [p.shape for p in pyr] == [(128, 256), (64, 128), (32, 64), (16, 32)]
+
+
+def _smooth_noise(H, W, seed=0, smooth=3):
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    k = np.ones(2 * smooth + 1, np.float32) / (2 * smooth + 1)
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, img)
+    img = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, img)
+    return img
+
+
+def _grid_features(H, W, margin=20, n=6):
+    us = np.linspace(margin, W - margin, n)
+    vs = np.linspace(margin, H - margin, n)
+    uu, vv = np.meshgrid(us, vs)
+    return np.stack([uu.ravel(), vv.ravel()], -1).astype(np.float32)
+
+
+def test_track_one_level_epi1d_locks_row():
+    """Rectified-stereo mode: a pure x shift is recovered and v never moves."""
+    img0 = _smooth_noise(120, 160, seed=5)
+    img1 = _shift_image(img0, 3.1, 0.0)
+    p0 = _grid_features(120, 160)
+    valid = jnp.ones(p0.shape[0], bool)
+    gx, gy = scharr_gradients(jnp.asarray(img0))
+    p1, live, _ = klt._track_one_level(
+        jnp.asarray(img0), gx, gy, jnp.asarray(img1), jnp.asarray(p0), jnp.asarray(p0),
+        valid, klt._patch_offsets(7), 20, 0.03, 1e-4, epi1d=True,
+    )
+    p1, live = np.asarray(p1), np.asarray(live)
+    assert live.sum() >= 30
+    np.testing.assert_allclose(p1[live, 0] - p0[live, 0], 3.1, atol=0.08)
+    np.testing.assert_allclose(p1[live, 1], p0[live, 1], atol=1e-5)
+
+
+def test_track_with_scale_handles_scaled_patch():
+    """img0 is a 1.25x zoom-out of the base texture; scale_change=1.25 maps
+    template offsets back onto it (reference trackWithScale semantics), so
+    the track lands on the geometric answer p0 / 1.25 from a 1 px-off seed."""
+    from visual_odometry_ros_tpu.utils.interp import bilinear_sample
+
+    H, W, sc = 120, 160, 1.25
+    base = jnp.asarray(_smooth_noise(2 * H + 32, 2 * W + 32, seed=11))
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    # img1 = f(x + 16); img0 = f(x/sc + 16): a patch at p with offsets sc*o in
+    # img0 equals f(p/sc + o + 16) = the img1 patch at p1 = p/sc with offsets o.
+    img1, _ = bilinear_sample(base, jnp.stack([jnp.asarray(uu + 16.0), jnp.asarray(vv + 16.0)], -1))
+    img0, _ = bilinear_sample(base, jnp.stack([jnp.asarray(uu / sc + 16.0), jnp.asarray(vv / sc + 16.0)], -1))
+    p0 = _grid_features(H, W, margin=30, n=5)
+    p1_true = p0 / sc
+    n = p0.shape[0]
+    gx, gy = scharr_gradients(img0)
+    p1, ok = klt.track_with_scale(
+        img0, gx, gy, img1, jnp.asarray(p0), jnp.asarray(p1_true + 1.0),
+        jnp.full((n,), sc, jnp.float32), jnp.ones(n, bool), radius=11, iters=25,
+    )
+    p1, ok = np.asarray(p1), np.asarray(ok)
+    assert ok.sum() >= 20
+    # The construction carries a ~1 px gradient-scale bias (template
+    # gradients are taken in img0's zoomed pixels).
+    np.testing.assert_allclose(p1[ok], p1_true[ok], atol=1.5)

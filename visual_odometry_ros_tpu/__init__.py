@@ -1,17 +1,15 @@
-"""TPU-native visual odometry framework.
+"""Visual odometry framework in JAX (stereo + monocular, batched XLA programs).
 
 Accuracy contract: all f32 matmuls/einsums run at float32 precision.
 
-On TPU, JAX's default matmul precision lowers f32 operands to bfloat16
-before the MXU pass (~0.4% relative error). That is fine for neural nets
-and fatal for geometry: this framework moves landmark positions and
-keyframe pose matrices through one-hot einsum scatters
+On an NVIDIA GPU, JAX's default matmul precision lets f32 products run in
+TF32 on the tensor cores, which keeps about three decimal digits. That is
+fine for neural nets and fatal for geometry: this framework moves landmark
+positions and keyframe pose matrices through one-hot einsum scatters
 (mapping/arena.py, models/{stereo,mono}_vo.py keyframe-ring permutation),
-so under the default every pose/point gets re-rounded to bf16 each frame
-— measured as a 4-5x ATE blowup of the SAME program on TPU vs CPU
-(ACCURACY.json tpu_jnp bisect, round 5). The hot kernels are unaffected:
-Pallas KLT sets HIGHEST internally and the remaining einsums are tiny
-(one-hot scatters are ~6 MFLOP), so this costs no measurable throughput.
+so under the default every pose/point would be re-rounded each frame. The
+pin below disables TF32 for every f32 matmul; the one-hot contractions it
+covers are small.
 """
 
 import jax as _jax

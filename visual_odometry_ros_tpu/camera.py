@@ -1,4 +1,4 @@
-"""Pinhole + radial-tangential camera model and stereo rectification, TPU-native.
+"""Pinhole + radial-tangential camera model and stereo rectification, batched.
 
 Capability parity with the reference `Camera`/`StereoCamera`
 (core/visual_odometry/camera.{h,cpp}):

@@ -17,7 +17,6 @@ config because they fix jit shapes.
 from __future__ import annotations
 
 import dataclasses
-import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -65,7 +64,6 @@ class TrackerConfig:
     coarse_iter: int = 6
     epi_iter: int = 8
     scale_iter: int = 12
-    use_pallas: str = "auto"  # "auto" (TPU only) | "on" | "off": Pallas KLT level kernel
 
 
 @dataclass
@@ -145,12 +143,58 @@ class VOConfig:
     map: MapConfig = field(default_factory=MapConfig)
 
 
-def _strip_opencv_yaml(text: str) -> str:
-    """Make the reference's OpenCV-flavored YAML parseable by PyYAML:
-    drop the %YAML:1.0 directive and the !!opencv-matrix tags."""
-    text = re.sub(r"^%YAML:[\d.]+\s*", "", text)
-    text = text.replace("!!opencv-matrix", "")
-    return text
+def _scalar(text: str):
+    """int, float or (unquoted) string, as a YAML 1.1 reader types the
+    reference files' scalars."""
+    text = text.strip()
+    for conv in (int, float):
+        try:
+            return conv(text)
+        except ValueError:
+            pass
+    return text.strip("'\"")
+
+
+def parse_opencv_yaml(text: str) -> dict:
+    """Parse the flat OpenCV-YAML subset the reference configs use.
+
+    Grammar: an optional `%YAML:x.y` header, `#` comment lines, top-level
+    `key: scalar` lines, and `key: !!opencv-matrix` blocks whose indented
+    `rows`/`cols`/`dt`/`data` fields nest under the key; `data: [...]` may
+    span lines. Returns {key: scalar | {field: scalar | list}}.
+    """
+    out: dict = {}
+    block = None  # dict of the open !!opencv-matrix block
+    pending = None  # (dict, key, text) of a `[...]` list not yet closed
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = raw.split("#", 1)[0].rstrip()
+        if pending is not None:
+            pending = (pending[0], pending[1], pending[2] + " " + line.strip())
+        elif not line.strip() or line.startswith("%YAML"):
+            continue
+        elif ":" not in line:
+            raise ValueError(f"line {n}: expected 'key: value', got {raw!r}")
+        else:
+            key, val = (t.strip() for t in line.split(":", 1))
+            indented = line[0].isspace()
+            if not indented:
+                block = None
+            elif block is None:
+                raise ValueError(f"line {n}: indented line outside an !!opencv-matrix block")
+            target = block if indented else out
+            if val == "!!opencv-matrix":
+                block = target[key] = {}
+            elif val.startswith("["):
+                pending = (target, key, val)
+            else:
+                target[key] = _scalar(val)
+        if pending is not None and pending[2].endswith("]"):
+            d, key, acc = pending
+            d[key] = [_scalar(v) for v in acc[1:-1].split(",") if v.strip()]
+            pending = None
+    if pending is not None:
+        raise ValueError(f"unterminated list for key {pending[1]!r}")
+    return out
 
 
 def _get(d: dict, key: str, default):
@@ -161,10 +205,8 @@ def _get(d: dict, key: str, default):
 def load_yaml(path: str, stereo: bool | None = None) -> VOConfig:
     """Load a reference-format YAML (mono or stereo). Unknown keys ignored;
     missing keys keep defaults — same permissiveness as cv::FileStorage reads."""
-    import yaml
-
     with open(path) as f:
-        raw = yaml.safe_load(_strip_opencv_yaml(f.read())) or {}
+        raw = parse_opencv_yaml(f.read())
 
     cfg = VOConfig()
     if stereo is None:

@@ -11,7 +11,7 @@ Capability parity with the reference map data model (L2):
     slots with per-slot observation tables; `checkUpdateRule`
     (keyframes.cpp:47-125) is computed as scalars inside jit.
 
-TPU-first: `shared_ptr` graphs become integer slot indices into static-shape
+Batched design: `shared_ptr` graphs become integer slot indices into static-shape
 arrays; every mutation is a masked scatter. Free-slot allocation is a cumsum
 ranking (SURVEY.md §7 'slot-allocation into the fixed arena').
 """
@@ -47,9 +47,7 @@ class LandmarkArena(NamedTuple):
     parallax_n: jax.Array  # [M] int32 — #parallax samples (landmark.cpp:129-132)
     desc: jax.Array  # [M, 32] int32 bytes — 256-bit rotated-BRIEF at birth (reloc)
     # (byte values are f32-exact so the one-hot-einsum scatter path works —
-    # packed uint32 words would be corrupted by the float contraction; int32
-    # storage because sub-word dtypes pessimize TPU layouts: a uint8 table
-    # cost ~25 ms/frame of relayout inside the fused update stage.)
+    # packed uint32 words would be corrupted by the float contraction.)
     desc_valid: jax.Array  # [M] bool
 
     @property
@@ -172,11 +170,10 @@ def onehot_update(dest: jax.Array, idx: jax.Array, mask: jax.Array, vals=None, o
     """Masked scatter with UNIQUE indices, expressed as one-hot contraction.
 
     dest: [M] or [M, D]; idx: [n] int32; mask: [n] bool (False lanes ignored).
-    op in {"set", "or", "add", "max"}. Rationale: TPU XLA's scatter emitter
-    crashes when several scatters sharing producers get fused (variadic
-    scatter, scatter_emitter.cc check), and scatter is VPU-serial anyway —
-    a one-hot matmul rides the MXU and fuses cleanly. Requires idx unique
-    among masked lanes (slot allocations guarantee this).
+    op in {"set", "or", "add", "max"}. The one-hot form keeps every update
+    a fused contraction with no scatter in the graph; whether unique-index
+    scatters are faster on the GPU is an open measurement. Requires idx
+    unique among masked lanes (slot allocations guarantee this).
     """
     M = dest.shape[0]
     oh = (idx[:, None] == jnp.arange(M, dtype=idx.dtype)[None, :]) & mask[:, None]  # [n, M]
@@ -207,7 +204,7 @@ def allocate_slots(free: jax.Array, n_request: int):
     M = free.shape[0]
     rank = jnp.cumsum(free.astype(jnp.int32)) - 1  # rank among free slots
     # Scatter-free inverse permutation: rank r -> slot index, via one-hot
-    # argmax (see onehot_update for the TPU scatter-emitter rationale).
+    # argmax (see onehot_update).
     oh = (rank[None, :] == jnp.arange(n_request, dtype=jnp.int32)[:, None]) & free[None, :]
     slot_of_rank = jnp.argmax(oh, axis=1).astype(jnp.int32)
     n_free = jnp.sum(free.astype(jnp.int32))
@@ -267,8 +264,7 @@ def gather_ba_problem(ring: KeyframeRing, arena: LandmarkArena, M_cap: int | Non
     pts_r_o = ring.pts_r[order]
 
     # Scatter-free build: per keyframe one [N, M] one-hot contraction (lane
-    # indices are unique within a KF). See onehot_update for why scatter is
-    # avoided on TPU.
+    # indices are unique within a KF), as in onehot_update.
     arange_m = jnp.arange(M, dtype=lm.dtype)
     pts_cols, mask_cols, pts_r_cols, mask_r_cols = [], [], [], []
     for k in range(K):

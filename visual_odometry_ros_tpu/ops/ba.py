@@ -1,4 +1,4 @@
-"""Sliding-window sparse bundle adjustment — Schur complement, batched, TPU-native.
+"""Sliding-window sparse bundle adjustment — Schur complement, batched.
 
 Capability parity with the reference BA stack
 (core/visual_odometry/ba_solver/):
@@ -14,7 +14,7 @@ Capability parity with the reference BA stack
     divergence guard on large translation updates (:652-654).
   - right-image observation rows via R_rl (:206-320) for the stereo solver.
 
-TPU-first design: observations live in a dense [M, K] incidence (pixels +
+Batched design: observations live in a dense [M, K] incidence (pixels +
 mask) instead of per-landmark vectors; all per-(landmark, keyframe)
 accumulations are fused einsums; the reduced 6K x 6K system is assembled once
 per iteration and solved by Cholesky. Landmark back-substitution is one
@@ -125,8 +125,8 @@ def build_observation_terms(T_cr, Xr, pts, mask, pts_r, mask_r, fx, fy, cx, cy, 
     rows = 2 (mono) stacked to 4 when right observations exist.
 
     The per-observation Jacobians are closed-form elementwise expressions —
-    tiny per-(m,k) matmuls (2x3 @ 3x6) would lower to millions of MXU
-    micro-dots; the VPU evaluates the expanded forms in one fused pass.
+    tiny per-(m,k) matmuls (2x3 @ 3x6) would lower to millions of micro-
+    dots; the expanded forms evaluate in one fused elementwise pass.
     """
     R = T_cr[:, :3, :3]  # [K, 3, 3]
     t = T_cr[:, :3, 3]  # [K, 3]
@@ -183,7 +183,7 @@ def build_observation_terms(T_cr, Xr, pts, mask, pts_r, mask_r, fx, fy, cx, cy, 
     )  # [M, K, 2, 3]
     # Q_r = dpiR @ [I | -skew(Xc)]; the rotation block rows are Xc x dpiR_row.
     Q_r = jnp.concatenate([dpiR, jnp.cross(Xc[..., None, :], dpiR)], axis=-1)  # [M, K, 2, 6]
-    # Rj_r = dpiR @ R (contract 3; mul-sum keeps it on the VPU).
+    # Rj_r = dpiR @ R (contract 3; an elementwise mul-sum).
     Rj_r = jnp.sum(dpiR[..., :, :, None] * R[None, :, None, :, :], axis=-2)
     m_r = (mask_r & zr_ok).astype(jnp.float32)
 
@@ -208,14 +208,14 @@ def assemble_normal_blocks(w, r, Q, Rj):
     Returns A [K,6,6], a [K,6], C [M,3,3], b [M,3], B [M,K,6,3].
 
     Contractions over the tiny residual-row axis (r<=4) are expanded
-    mul-sums (VPU); only the landmark-axis reductions ride dots.
+    mul-sums; only the landmark-axis reductions are dots.
     """
     wQ = Q * w[..., None]
     # A: contract (m, r) — inner dim M*rows is large, a real matmul per k.
     A = jnp.einsum("mkra,mkrb->kab", wQ, Q, precision=_HI)
     a = -jnp.einsum("mkra,mkr->ka", wQ, r, precision=_HI)
     wR = Rj * w[..., None]
-    # C/b/B: batch (m[,k]) with tiny contraction — keep off the MXU.
+    # C/b/B: batch (m[,k]) with tiny contraction — elementwise mul-sums.
     C = jnp.sum(wR[..., :, :, None] * Rj[..., :, None, :], axis=(-4, -3))  # [M,3,3]
     b = -jnp.sum(wR * r[..., None], axis=(-3, -2))  # [M, 3]
     B = jnp.sum(wQ[..., :, :, None] * Rj[..., :, None, :], axis=-3)  # [M,K,6,3]
@@ -229,8 +229,7 @@ def schur_reduce(A, a, C, b, B, lam):
     """
     K = A.shape[0]
     M = C.shape[0]
-    # Diagonal ops as mask arithmetic (multi-index scatters crash the TPU
-    # XLA scatter emitter and fuse worse anyway).
+    # Diagonal ops as mask arithmetic (fuses; no multi-index scatter).
     eye6 = jnp.eye(6, dtype=A.dtype)
     eye3 = jnp.eye(3, dtype=C.dtype)
     A = A + lam * A * eye6
@@ -238,13 +237,13 @@ def schur_reduce(A, a, C, b, B, lam):
     # Regularize unobserved landmark blocks so Cinv stays finite.
     C = C + 1e-6 * eye3
     Cinv = _inv3x3(C)
-    # BCinv: batched [6,3]@[3,3] per (m,k) — mul-sum on the VPU.
+    # BCinv: batched [6,3]@[3,3] per (m,k) — elementwise mul-sum.
     BCinv = jnp.sum(B[..., :, :, None] * Cinv[:, None, None, :, :], axis=-2)  # [M,K,6,3]
-    # S_off contracts (m, c): reshape into ONE [6K, 3M] @ [3M, 6K] MXU matmul.
+    # S_off contracts (m, c): reshape into ONE [6K, 3M] @ [3M, 6K] matmul.
     X1 = BCinv.transpose(1, 2, 0, 3).reshape(K * 6, M * 3)
     X2 = B.transpose(0, 3, 1, 2).reshape(M * 3, K * 6)
-    # HIGHEST precision: the default MXU matmul truncates f32 inputs to bf16,
-    # which injects noise into the reduced camera system (ADVICE r1).
+    # HIGHEST precision: a reduced-precision (TF32) product would inject
+    # noise into the reduced camera system.
     S_off = jnp.matmul(X1, X2, precision=_HI).reshape(K, 6, K, 6).transpose(0, 2, 1, 3)
     eyeK = jnp.eye(K, dtype=A.dtype)
     S = -S_off + eyeK[:, :, None, None] * A[:, None, :, :]
@@ -282,7 +281,7 @@ def solve_reduced(S, s, opt_mask):
 
 
 def back_substitute(Cinv, b, B, dx):
-    """dy_i = Cinv_i (b_i - sum_j B_ij^T dx_j)  — [M, 3] (VPU mul-sums)."""
+    """dy_i = Cinv_i (b_i - sum_j B_ij^T dx_j)  — [M, 3] (elementwise mul-sums)."""
     Btx = jnp.sum(B * dx[None, :, :, None], axis=(1, 2))  # [M, 3]
     rhs = b - Btx
     return jnp.sum(Cinv * rhs[:, None, :], axis=-1)

@@ -13,7 +13,7 @@ Capability parity with the reference `MotionEstimator`'s geometry stack
   - Sampson / symmetric epipolar distances (:539-653)
   - `calcPoseOnePointHistogram` steering-angle vote (:471-537)
 
-TPU-first: hypotheses are a fixed [K]-batch; each 8-point solve is the
+Batched design: hypotheses are a fixed [K]-batch; each 8-point solve is the
 smallest eigenvector of a 9x9 normal matrix (batched eigh); scoring is one
 [K, N] fused Sampson evaluation; selection is an argmax. No data-dependent
 shapes anywhere.
@@ -264,7 +264,7 @@ def one_point_pose(
     squares its threshold, :527).
 
     pts0/pts1: [N, 2] pixels. Everything fixed-shape; the histogram vote is a
-    one-hot [N, bins] contraction (scatter-free, rides the MXU)."""
+    one-hot [N, bins] contraction (scatter-free)."""
     xn0 = jnp.stack([(pts0[:, 0] - cx) / fx, (pts0[:, 1] - cy) / fy], -1)
     xn1 = jnp.stack([(pts1[:, 0] - cx) / fx, (pts1[:, 1] - cy) / fy], -1)
     theta, _ = steering_angle_histogram(xn0, xn1, valid, bins=bins)

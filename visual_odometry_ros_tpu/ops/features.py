@@ -9,13 +9,13 @@ Capability parity with the reference `FeatureExtractor`
   - `extractAndComputeORB` descriptors (:321-332)
   - `descriptorDistance` 256-bit Hamming popcount (:338-357)
 
-TPU-first design: FAST-9/16 is evaluated for every pixel at once with 16
+Batched design: FAST-9/16 is evaluated for every pixel at once with 16
 rolled images and a bit-trick contiguous-arc test; corners are re-scored with
 a Harris response (ORB's HARRIS_SCORE mode); the per-bin argmax is one
 reshape + max-reduce (the reference's per-bin scalar scan at
 feature_extractor.cpp:244-281 becomes a segment max). Descriptors are rotated
 BRIEF-256 over a shared pattern — batched gathers + bit packing; distances are
-XOR + population_count on the VPU.
+XOR + population_count.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def shi_tomasi_response(img: jax.Array, radius: int = 2) -> jax.Array:
 def occupancy_grid(pts: jax.Array, valid: jax.Array, H: int, W: int, gh: int, gw: int) -> jax.Array:
     """[gh, gw] count of live features per bin (WeightBin update,
     feature_extractor.h:96-141). One-hot contraction instead of scatter-add
-    (TPU scatter-emitter bug + better fusion; bins are few)."""
+    (fuses cleanly; bins are few)."""
     bu = jnp.clip((pts[:, 0] / (W / gw)).astype(jnp.int32), 0, gw - 1)
     bv = jnp.clip((pts[:, 1] / (H / gh)).astype(jnp.int32), 0, gh - 1)
     flat = bv * gw + bu
@@ -251,13 +251,12 @@ _CENT_W[_SLAB_R - 15 : _SLAB_R + 16, _SLAB_R - 15 : _SLAB_R + 16, 1] = np.where(
 def orb_descriptors(img: jax.Array, pts: jax.Array):
     """[N, 8] uint32 packed 256-bit rotated-BRIEF descriptors + validity.
 
-    TPU shape (r4): ONE contiguous slab per feature via vmapped
+    Layout: ONE contiguous slab per feature via vmapped
     dynamic_slice; the intensity-centroid orientation is a masked reduction
     over the slab, and the rotation is a quantized-angle LOOKUP into
     pre-rotated integer pattern tables (exactly how reference ORB rotates
-    its pattern) — so every pick is a compile-time-constant index. The
-    earlier per-point bilinear gathers fused pathologically inside the
-    update stage (~25 ms/frame; slab form ~2 ms)."""
+    its pattern) — so every pick is a compile-time-constant index. Slab
+    loads versus plain gathers on the GPU is an open measurement."""
     H, W = img.shape
     imgp = jnp.pad(img, ((_SLAB_R, _SLAB_R + 1), (_SLAB_R, _SLAB_R + 1)))
     ai = jnp.round(pts).astype(jnp.int32)  # integer center (subpixel irrelevant)
@@ -312,7 +311,7 @@ def desc_to_u8(packed: jax.Array) -> jax.Array:
 @jax.jit
 def hamming_distance_matrix(da: jax.Array, db: jax.Array) -> jax.Array:
     """[N, 8] x [M, 8] uint32 -> [N, M] int32 Hamming distances
-    (descriptorDistance analog, popcount on the VPU)."""
+    (descriptorDistance analog, elementwise popcount)."""
     x = da[:, None, :] ^ db[None, :, :]
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 

@@ -5,7 +5,7 @@ Capability parity with the reference `MotionEstimator::calcPoseByPnP`
 (EPNP) with a retry at 2x the reprojection threshold and a 60% inlier-count
 acceptance vote, followed by refinement.
 
-TPU-first: K minimal 6-point DLT hypotheses solved as one batched 12x12
+Batched design: K minimal 6-point DLT hypotheses solved as one batched 12x12
 eigenproblem, nearest-rotation projection per hypothesis, reprojection
 scoring as one [K, N] fused evaluation, and a pose-only GN polish on the
 winning inlier set (reusing ops/pose_gn). The reference's retry-at-2x rule is

@@ -12,7 +12,7 @@ Capability parity with the reference `MotionEstimator` pose-only BA
   - the exploit-sparsity JtWJ accumulations (:1342-1576) become one fused
     einsum over all points.
 
-TPU-first: the per-point scalar loop is a single [N]-batched residual/Jacobian
+Batched design: the per-point scalar loop is a single [N]-batched residual/Jacobian
 evaluation; the 6x6 normal system is accumulated with full-f32 contractions
 and solved closed-form via Cholesky each iteration inside `lax.while_loop`.
 """

@@ -22,10 +22,9 @@ _SCHARR_D = np.array([-1.0, 0.0, 1.0], np.float32) * 0.5
 def _sep_conv(img: jax.Array, kh, kw) -> jax.Array:
     """Separable 2D convolution with edge replication. img: [H, W].
 
-    Implemented as shift-and-FMA over statically sliced views: on TPU a
-    single-channel spatial conv lowers poorly (channel padding to the MXU),
-    while K shifted adds are pure VPU work that XLA fuses into ~one pass
-    over the image. Taps are Python floats so zero taps drop at trace time.
+    Implemented as shift-and-FMA over statically sliced views, which XLA
+    fuses into about one elementwise pass over the image. Taps are Python
+    floats so zero taps drop at trace time.
     """
     H, W = img.shape
     kh = np.asarray(kh).tolist()
@@ -77,12 +76,10 @@ def _decim(n_out: int, n_in: int) -> np.ndarray:
 def downsample2(img: jax.Array) -> jax.Array:
     """Blur + stride-2 decimation (one pyramid step).
 
-    Expressed as two band-matrix matmuls (A_r @ img @ A_c^T) so the whole
-    level rides the MXU in one fused pass: TPU lowers shifted odd-offset
-    slices of a [H, W] image to full-array sublane/lane rotations (~3 ms per
-    KITTI pyramid measured), while the equivalent decimation matmul is tens
-    of microseconds. Bit-compatible with blur-then-[::2, ::2] up to f32
-    summation order (HIGHEST precision keeps the MXU in full f32)."""
+    Expressed as two band-matrix matmuls (A_r @ img @ A_c^T). Equal to
+    blur-then-[::2, ::2] up to f32 summation order (HIGHEST precision keeps
+    the products in full f32, not TF32). Whether strided slices are faster
+    on the GPU is an open measurement."""
     H, W = img.shape
     Ho, Wo = (H + 1) // 2, (W + 1) // 2
     Ar = jnp.asarray(_decim(Ho, H))
@@ -106,18 +103,9 @@ def scharr_gradients(img: jax.Array) -> tuple[jax.Array, jax.Array]:
     return gx, gy
 
 
-def build_pyramid_with_gradients(img: jax.Array, levels: int, with_gradients: bool = True):
-    """Pyramid plus per-level Scharr gradients: ((img, gx, gy), ...).
-
-    with_gradients=False skips the Scharr convs and aliases gx = gy = img —
-    the Pallas KLT path computes template gradients IN-KERNEL from the patch
-    bank (klt_pallas_fp), so host-side gradient pyramids are dead weight
-    there (~2/3 of the pyramid cost per frame). The tuple shape stays
-    (img, gx, gy) so pipeline state pytrees are layout-compatible either way.
-    """
+def build_pyramid_with_gradients(img: jax.Array, levels: int):
+    """Pyramid plus per-level Scharr gradients: ((img, gx, gy), ...)."""
     pyr = build_pyramid(img, levels)
-    if not with_gradients:
-        return tuple((p, p, p) for p in pyr)
     return tuple((p, *scharr_gradients(p)) for p in pyr)
 
 
@@ -136,7 +124,7 @@ def global_shift_zncc(prev: jax.Array, curr: jax.Array, radius: int = 8):
     track onto a local alias and the pose never re-converges (the 137-
     frame fail run in the 200-frame hard sequence). Rotation — the
     dominant blackout drift — projects to a near-uniform image shift,
-    exactly what this measures. Pure shifts + reductions: VPU work.
+    exactly what this measures. Pure shifts + reductions.
 
     Returns (shift [2] float32 = (du, dv) in this level's pixels, score).
     """

@@ -6,7 +6,7 @@ patch matching along the epipolar row, multi-peak rejection, parabolic
 subpixel refinement, and inverse-depth standard deviation output — the
 companion measurement model of the depth filter (SURVEY.md §2 'DepthFilter').
 
-TPU-first: the cost volume is D shifted whole-image ZNCC evaluations built
+Batched design: the cost volume is D shifted whole-image ZNCC evaluations built
 from box-filtered moment images (each disparity = a few fused elementwise
 maps + separable box filters) — no per-pixel loops anywhere.
 """
@@ -153,10 +153,9 @@ def verify_disparity_zncc(
 
     from ..utils import interp
 
-    # Slab loads, not point gathers (the TPU rule that shapes the Pallas KLT
-    # too): the naive per-(feature, delta) patch gather is 1.4M scalar
-    # gathers (~115 ms/frame measured); the per-feature strip of pointwise
-    # bilinear samples is still ~350k (~20 ms). Instead: pad once, pull ONE
+    # Slab loads, not point gathers: the naive per-(feature, delta) patch
+    # gather is 1.4M scalar gathers, and the per-feature strip of pointwise
+    # bilinear samples is still ~350k. Instead: pad once, pull ONE
     # contiguous (R+1) x (W_s+1) slab per feature via vmapped dynamic_slice,
     # and do the shared-fraction bilinear blend with four shifted slices —
     # whole-row memory traffic + pure vector math.

@@ -1,8 +1,8 @@
-"""Batched two-view triangulation — closed-form, SVD-free, TPU-friendly.
+"""Batched two-view triangulation — closed-form, SVD-free.
 
 Capability parity with `mapping::triangulateDLT` (core/util/triangulate_3d.cpp:5-130),
 which builds a 4x4 DLT matrix per point and runs JacobiSVD in a scalar loop.
-Per-point SVD maps terribly to the MXU, so we solve the *inhomogeneous* DLT
+Per-point SVD batches poorly, so we solve the *inhomogeneous* DLT
 least-squares system instead: 4 linear constraints in the 3 unknowns of X,
 solved in closed form via the adjugate of the 3x3 normal matrix — one fused
 batch of elementwise ops + tiny matmuls over all N points at once.
@@ -70,9 +70,9 @@ def triangulate(xn0: jax.Array, xn1: jax.Array, T_10: jax.Array):
     A = jnp.stack([r0a, r0b, r1a, r1b], axis=-2)  # [N, 4, 3]
     b = jnp.stack([b0a, b0b, b1a, b1b], axis=-1)  # [N, 4]
 
-    # Tiny contraction (k=4): explicit broadcast-sum keeps full f32 on the VPU
-    # (default TPU matmul precision would route through bf16 on the MXU, and
-    # the normal equations are conditioning-sensitive at small parallax).
+    # Tiny contraction (k=4): an explicit broadcast-sum keeps full f32 in
+    # every backend's default matmul precision (the normal equations are
+    # conditioning-sensitive at small parallax).
     AtA = jnp.sum(A[..., :, :, None] * A[..., :, None, :], axis=-3)
     Atb = jnp.sum(A * b[..., None], axis=-2)
     X0 = _solve3x3(AtA, Atb)

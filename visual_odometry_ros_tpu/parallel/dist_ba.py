@@ -6,7 +6,7 @@ does not have. Partitioning:
     substitution) are sharded along the mesh 'lm' axis and never move;
   - keyframe poses + the reduced camera system (6K x 6K with K <= window+1,
     i.e. a few KB) are replicated; each GN iteration does exactly one psum of
-    (S, s) over ICI — latency-bound, tiny payload;
+    (S, s) over the interconnect — latency-bound, tiny payload;
   - the replicated dense solve is deterministic, so all devices step the
     poses identically with no further synchronization.
 

@@ -1,8 +1,8 @@
 """Device-mesh helpers for distributed VO.
 
 The reference's only 'distribution' is ROS pub/sub (SURVEY.md §2 parallelism
-inventory); the TPU-native framework replaces it with a jax.sharding.Mesh and
-XLA collectives over ICI/DCN. One mesh axis ('lm') shards the landmark/map
+inventory); this framework replaces it with a jax.sharding.Mesh and XLA
+collectives (NCCL between GPUs). One mesh axis ('lm') shards the landmark/map
 blocks; keyframe poses are replicated (they are tiny and every shard needs
 them for Hessian assembly).
 """

@@ -1,19 +1,18 @@
 """Multi-host (multi-process) runtime for the distributed BA path.
 
 The reference has no multi-machine story at all — its only inter-process
-transport is ROS pub/sub on one host (SURVEY.md §2). The TPU-native design
-targets pod slices: one Python process per host, `jax.distributed` for the
-coordination service, one global `Mesh` over every chip, and the same
+transport is ROS pub/sub on one host (SURVEY.md §2). This design targets
+several hosts: one Python process per host, `jax.distributed` for the
+coordination service, one global `Mesh` over every device, and the same
 landmark-sharded Schur BA (`parallel/dist_ba.py`) jitted over it — XLA lowers
-the per-iteration (S, s) psum to ICI/DCN collectives, no application-level
+the per-iteration (S, s) psum to collectives, no application-level
 networking.
 
-On this container there are no multi-chip hosts, so the SAME code path is
-exercised with N CPU processes × D virtual CPU devices each
-(`--xla_force_host_platform_device_count`): the coordination handshake, the
-global-mesh construction, `make_array_from_callback` shard placement, and the
-cross-process psum are all identical to the pod case; only the transport
-differs (gRPC loopback instead of ICI). `scripts/bench_scaling.py
+The tests exercise the SAME code path with N CPU processes × D virtual CPU
+devices each (`--xla_force_host_platform_device_count`): the coordination
+handshake, the global-mesh construction, `make_array_from_callback` shard
+placement, and the cross-process psum are identical to the multi-host case;
+only the transport differs (gRPC loopback). `scripts/bench_scaling.py
 --multiprocess` and `tests/test_multihost.py` drive it.
 """
 

@@ -1,12 +1,12 @@
 // Native frame-ingest runtime: threaded decode + bounded prefetch queue.
 //
-// TPU-native replacement for the reference's runtime layer (SURVEY.md L5):
+// Replacement for the reference's runtime layer (SURVEY.md L5):
 // where the reference ingests frames through ROS topics with a subscriber
 // queue and message_filters stereo sync (ros1/visual_odometry/
 // stereo_vo_ros1.cpp:14-20), this library decodes image files on worker
 // threads ahead of the device step and hands out stereo-synced frame pairs
 // through a lock-guarded bounded ring — keeping the Python driver (and the
-// TPU) free of decode latency. Exposed through a plain C ABI for ctypes.
+// device) free of decode latency. Exposed through a plain C ABI for ctypes.
 //
 // Decoders: 8-bit grayscale/RGB/RGBA PNG (zlib inflate + per-scanline
 // unfilter) and binary PGM (P5). Output is always float32 grayscale

@@ -1,4 +1,4 @@
-"""SO(3)/SE(3) geometry core — batched, jit-friendly, TPU-native.
+"""SO(3)/SE(3) geometry core — batched, jit-friendly.
 
 Covers the capability surface of the reference `geometry::` namespace
 (reference: core/util/geometry_library.{h,cpp} — se3Exp at geometry_library.cpp:386-440,

@@ -19,7 +19,7 @@ def huber_weight(r_abs: jax.Array, delta: float) -> jax.Array:
 
 def masked_histogram(values: jax.Array, mask: jax.Array, lo: float, hi: float, bins: int):
     """Fixed-bin histogram of masked values ([N] -> [bins]), jit-safe.
-    One-hot sum instead of scatter-add (TPU-friendly; bins are few)."""
+    One-hot sum instead of scatter-add (fuses cleanly; bins are few)."""
     idx = jnp.clip(((values - lo) / (hi - lo) * bins).astype(jnp.int32), 0, bins - 1)
     oh = idx[:, None] == jnp.arange(bins, dtype=jnp.int32)[None, :]
     return jnp.sum(oh & mask[:, None], axis=0).astype(jnp.float32)
